@@ -8,14 +8,20 @@ toolkit (nvcc); it imports no JAX and nothing of ribca_tpu. Phases, each
 printing one JSON line; any failure exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: every CUDA kernel of the port, from the sources in the checkout;
+2. build: every CUDA kernel of the port, from the sources in the checkout,
+   with ptxas's registers and spills for the main path's instantiations;
 3. kernel: each kernel against its plain PyTorch version on the card at
-   the main path's shapes and at the other ViT widths' head dims
-   (max |diff| <= 1e-4 in f32, <= 2e-2 in bf16),
+   the main path's shapes, both on the unbind views of a fused qkv
+   projection (as the ViT calls it) and on contiguous inputs, at the
+   other ViT widths' head dims, at the MAE's L = 16, hd = 64 and at the
+   edges L = 128 and L = 1 (max |diff| <= 1e-4 in f32, <= 2e-2 in bf16),
    with CUDA-event medians of the kernel, the plain version and, as a
    yardstick the port never calls, one PyTorch library call;
 4. model: the immune_base ViT (width 288, depth 12) on 128 seeded patches,
    f32 on the card through the kernel vs the CPU plain path, same weights;
+   then one bf16 forward at 4096 cells under torch.profiler: the top
+   device operations by time, the attention kernel's share and that of
+   the copy and transpose kernels, and the device's busy share;
 5. reference: a small slide through the whole Annotator in f32 on the card
    and on the CPU (plain versions): identical labels, close confidences;
 6. end to end: the CLI's single-image annotation of a seeded synthetic
@@ -31,10 +37,12 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -48,6 +56,8 @@ ATTN_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # 4096 cells, and a slide's last chunk drops to its power-of-two bucket
 MAIN_SHAPE = (8192, 12, 101, 24)
 CLI_SHAPES = ((4096, 12, 101, 24), (2048, 12, 101, 24))
+# the MAE imputer's blocks (L <= 16, hd 64) and the kernel's edges
+OTHER_SHAPES = ((4096, 12, 16, 64), (4096, 12, 128, 24), (4096, 12, 1, 24))
 
 
 def emit(phase: str, **fields) -> None:
@@ -78,6 +88,36 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
+# -- phase 2 ------------------------------------------------------------------
+
+
+def ptxas_usage(log: str) -> dict:
+    """{kernel: {"registers", "spill_stores", "spill_loads"}} from the
+    compiler's -Xptxas=-v lines; template arguments shown as <...>."""
+    usage, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            mangled = m.group(1)
+            base = re.search(r"attention_(?:bf16|f32)", mangled)
+            args = re.findall(r"Li(\d+)E", mangled)
+            name = (base.group(0) if base else mangled) + (
+                f"<{','.join(args)}>" if args else "")
+            usage[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            usage[name]["spill_stores"] = int(m.group(1))
+            usage[name]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            usage[name]["registers"] = int(m.group(1))
+    return usage
+
+
 # -- phase 3 ------------------------------------------------------------------
 
 
@@ -92,7 +132,18 @@ def attention_bound(shape, dtype) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_attention(shape, dtype, gen) -> dict:
+def attention_inputs(shape, dtype, gen, layout):
+    """q, k, v of (B, H, L, hd): contiguous, or the unbind views of one
+    (B, L, 3, H, hd) fused projection as the ViT passes them."""
+    b, h, length, hd = shape
+    if layout == "fused":
+        qkv = torch.randn(b, length, 3, h, hd, device="cuda", generator=gen)
+        return qkv.to(dtype).permute(2, 0, 3, 1, 4).unbind(0)
+    return tuple(torch.randn(shape, device="cuda", generator=gen).to(dtype)
+                 for _ in range(3))
+
+
+def check_attention(shape, dtype, gen, layout="fused") -> dict:
     import torch.nn.functional as F
 
     from ribca_tpu_torch.ops.attention import (
@@ -100,8 +151,7 @@ def check_attention(shape, dtype, gen) -> dict:
         reference_attention,
     )
 
-    q, k, v = (torch.randn(shape, device="cuda", generator=gen).to(dtype)
-               for _ in range(3))
+    q, k, v = attention_inputs(shape, dtype, gen, layout)
     scale = shape[-1] ** -0.5
     out = fused_attention(q, k, v, scale)
     torch.cuda.synchronize()
@@ -110,10 +160,12 @@ def check_attention(shape, dtype, gen) -> dict:
     if not err <= ATTN_TOL[dtype]:
         raise AssertionError(
             f"attention kernel disagrees with its plain version at "
-            f"{shape} {dtype}: max |diff| {err} > {ATTN_TOL[dtype]}")
+            f"{shape} {dtype} {layout}: max |diff| {err} > "
+            f"{ATTN_TOL[dtype]}")
     bound, bound_by = attention_bound(shape, dtype)
     row = {
         "shape": list(shape), "dtype": str(dtype).split(".")[-1],
+        "layout": layout,
         "max_abs_err": err, "tol": ATTN_TOL[dtype],
         "ms": cuda_ms(lambda: fused_attention(q, k, v, scale)),
         "plain_ms": cuda_ms(lambda: reference_attention(q, k, v, scale)),
@@ -160,6 +212,101 @@ def check_model() -> dict:
     row = {"cells": 128, "max_abs_logit_diff": diff, "atol": 1e-3,
            "argmax_checked": int(decided.sum())}
     emit("model", **row)
+    return row
+
+
+def kernel_kind(name: str) -> str:
+    """A coarse class of a device kernel's name, for the forward's split."""
+    low = name.lower()
+    if "attention_bf16" in low or "attention_f32" in low:
+        return "attention kernel"
+    if "copy" in low or "transpose" in low:
+        return "copy / transpose"
+    # before "gemm": the patch embedding's kernel is a convolve_sgemm
+    if "conv" in low or "implicit" in low:
+        return "convolution"
+    if any(w in low for w in ("gemm", "xmma", "cutlass", "nvjet", "sm90_")):
+        return "matmul (cuBLAS)"
+    if "layer_norm" in low or "layernorm" in low:
+        return "layer norm"
+    if "gelu" in low:
+        return "gelu"
+    return "other elementwise"
+
+
+def profile_forward(cells: int = 4096) -> dict:
+    """One bf16 immune_base forward at ``cells`` patches under
+    torch.profiler: device time by kernel and by kind. Without device time
+    in the trace it reports the CUDA-event time alone."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ribca_tpu_torch.models.params import random_vit_tree, vit_state_dict
+    from ribca_tpu_torch.models.vit import build_panel_model, cast_for_compute
+
+    model = build_panel_model("immune_base")
+    model.load_state_dict(vit_state_dict(random_vit_tree(7, 5, 288, depth=12,
+                                                         seed=1)))
+    model = cast_for_compute(model.to("cuda").eval(), torch.bfloat16)
+    x = torch.randn(cells, 7, 40, 40, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(4))
+    with torch.inference_mode():
+        event_ms = cuda_ms(lambda: model(x), reps=5, warmup=2)
+        row = {"cells": cells, "dtype": "bfloat16", "forward_ms": event_ms}
+        # only the profiler's own calls are guarded (the trace is
+        # information); the forward runs outside, so its failure stops here
+        try:
+            prof = profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA])
+            prof.start()
+        except Exception:
+            prof = None
+            row["profiler"] = "failed: " + traceback.format_exc()[-2000:]
+        t0 = time.perf_counter()
+        model(x)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels, counts = {}, {}
+    if prof is not None:
+        try:
+            prof.stop()
+            for evt in prof.key_averages():
+                if evt.device_type != torch.autograd.DeviceType.CUDA:
+                    continue
+                us = getattr(evt, "self_device_time_total", None)
+                if us is None:
+                    us = evt.self_cuda_time_total
+                kernels[evt.key] = kernels.get(evt.key, 0.0) + us / 1e3
+                counts[evt.key] = counts.get(evt.key, 0) + evt.count
+        except Exception:
+            row["profiler"] = "failed: " + traceback.format_exc()[-2000:]
+    if "profiler" in row:
+        emit("profile", **row)
+        return row
+    device_ms = sum(kernels.values())
+    if device_ms <= 0:
+        row["profiler"] = "the trace holds no device time"
+        emit("profile", **row)
+        return row
+    kinds = {}
+    for name, ms in kernels.items():
+        kinds[kernel_kind(name)] = kinds.get(kernel_kind(name), 0.0) + ms
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+    for name, ms in top:
+        print(f"  {ms:9.3f} ms {100 * ms / device_ms:5.1f}% "
+              f"{counts[name]:4d}x {kernel_kind(name):18s} {name[:100]}",
+              flush=True)
+    row.update({
+        "profiled_wall_ms": wall_ms, "device_ms": device_ms,
+        "device_busy_share": device_ms / wall_ms,
+        "share_by_kind": {k: v / device_ms for k, v in
+                          sorted(kinds.items(), key=lambda kv: -kv[1])},
+        "ms_by_kind": kinds,
+        "attention_share": kinds.get("attention kernel", 0.0) / device_ms,
+        "copy_share": kinds.get("copy / transpose", 0.0) / device_ms,
+        "top": [{"name": n[:160], "ms": ms, "launches": counts[n]}
+                for n, ms in top],
+    })
+    emit("profile", **row)
     return row
 
 
@@ -349,28 +496,44 @@ def main() -> int:
          torch=torch.__version__, cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
-    kernels.build_all(force=True)
+    logs = kernels.build_all(force=True)
+    usage = ptxas_usage(logs["attention"])
+    # the main path's instantiations: L = 101 (7 row tiles), hd = 24 (3)
     emit("build", seconds=time.perf_counter() - t0,
-         kernels=sorted(kernels.sources()))
+         kernels=sorted(kernels.sources()),
+         ptxas={k: v for k, v in usage.items()
+                if k in ("attention_bf16<7,3>", "attention_f32")},
+         instantiations=len(usage),
+         max_registers=max(v.get("registers", 0) for v in usage.values()),
+         spilling=sorted(k for k, v in usage.items()
+                         if v.get("spill_stores", 0) > 0))
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     main_rows = {dt: check_attention(MAIN_SHAPE, dt, gen)
                  for dt in (torch.bfloat16, torch.float32)}
+    for dt in (torch.bfloat16, torch.float32):
+        check_attention(MAIN_SHAPE, dt, gen, layout="contiguous")
     for shape in CLI_SHAPES:
         check_attention(shape, torch.bfloat16, gen)
+        check_attention(shape, torch.bfloat16, gen, layout="contiguous")
     for hd in (12, 32, 48):
         for dt in (torch.bfloat16, torch.float32):
             check_attention((1024, 12, 101, hd), dt, gen)
+    for shape in OTHER_SHAPES:
+        for dt in (torch.bfloat16, torch.float32):
+            check_attention(shape, dt, gen)
     torch.cuda.empty_cache()
 
     check_model()
+    profile_forward()
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=HERE) as wd:
         models_dir = os.path.join(wd, "models")
         write_weights(models_dir)
         check_reference(wd, models_dir)
         e2e = run_end_to_end(wd, models_dir)
 
-    main_row = main_rows[torch.bfloat16]
+    main_row, f32_row = main_rows[torch.bfloat16], main_rows[torch.float32]
     print(json.dumps({"kernels": [{
         "name": "fused_attention", "route": "cuda",
         "source": "ribca_tpu_torch/csrc/attention.cu",
@@ -380,6 +543,8 @@ def main() -> int:
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
+        "f32_ms": f32_row["ms"], "f32_bound_ms": f32_row["bound_ms"],
+        "f32_max_abs_err": f32_row["max_abs_err"],
     }]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -23,7 +23,7 @@ SRC_DIR = os.path.join(os.path.dirname(__file__), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(__file__), "_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "--split-compile=0",
 )
 
 _BUILD_LOCK = threading.Lock()
@@ -58,8 +58,9 @@ def nvcc_path() -> str:
 
 def build_all(force: bool = False) -> dict:
     """Compile every stale (or, with ``force``, every) kernel library in
-    parallel. Returns {name: compiler output}; raises with the compiler's
-    output when a build fails."""
+    parallel. Returns {name: compiler output}, which holds ptxas's
+    registers, shared memory and spills of each kernel; raises with the
+    compiler's output when a build fails."""
     with _BUILD_LOCK:
         os.makedirs(BUILD_DIR, exist_ok=True)
         todo = {

@@ -61,7 +61,7 @@ class Attention(nn.Module):
         b, n, d = x.shape
         qkv = self.qkv(x).reshape(b, n, 3, self.num_heads,
                                   d // self.num_heads)
-        q, k, v = qkv.permute(2, 0, 3, 1, 4).contiguous().unbind(0)
+        q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)  # views, no copy
         x = fused_attention(q, k, v, self.scale)
         return self.proj(x.transpose(1, 2).reshape(b, n, d))
 
