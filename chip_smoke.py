@@ -9,25 +9,35 @@ printing one JSON line; any failure exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: every CUDA kernel of the port, from the sources in the checkout,
-   with ptxas's registers and spills for the main path's instantiations;
+   with ptxas's registers and spills for the on-path instantiations;
 3. kernel: each kernel against its plain PyTorch version on the card at
    the main path's shapes, both on the unbind views of a fused qkv
    projection (as the ViT calls it) and on contiguous inputs, at the
-   other ViT widths' head dims, at the MAE's L = 16, hd = 64 and at the
-   edges L = 128 and L = 1 (max |diff| <= 1e-4 in f32, <= 2e-2 in bf16),
-   with CUDA-event medians of the kernel, the plain version and, as a
-   yardstick the port never calls, one PyTorch library call;
+   other ViT widths' head dims, at the MAE imputer's shapes (hd 64,
+   L 7-16, 12 and 8 heads), at the immune_full classifier's dispatch and
+   at the edges L = 128 and L = 1 (max |diff| <= 1e-4 in f32, <= 2e-2 in
+   bf16), with CUDA-event medians of the kernel, the plain version and,
+   as a yardstick the port never calls, one PyTorch library call;
 4. model: the immune_base ViT (width 288, depth 12) on 128 seeded patches,
    f32 on the card through the kernel vs the CPU plain path, same weights;
    then one bf16 forward at 4096 cells under torch.profiler: the top
    device operations by time, the attention kernel's share and that of
    the copy and transpose kernels, and the device's busy share;
+   imputer: the immune_full MAE (768 x 12 encoder, 512 x 8 decoder) on
+   128 seeded patches with one marker missing, f32, card vs CPU;
 5. reference: a small slide through the whole Annotator in f32 on the card
    and on the CPU (plain versions): identical labels, close confidences;
+   then the same for a two-slide batch that misses a marker (MAE
+   imputation and the cohort packer);
 6. end to end: the CLI's single-image annotation of a seeded synthetic
    2048 x 2048 7-channel uint16 slide with ~10,000 cells, bf16, device
    voting; checks the outputs and that every ensemble dispatch launched
-   the attention kernel 12 times; repeats in f32 for the label agreement.
+   the attention kernel 12 times; repeats in f32 for the label agreement;
+7. batch imputation: the CLI's batch run of three seeded 15-channel
+   slides (~10,000, ~5,000 and ~2,500 cells) whose marker list misses
+   CD68, so the immune_full classifier runs behind the MAE imputer;
+   checks the outputs, 32 attention launches per dispatch and that the
+   cohort packer dispatched the rows its rules plan; repeats in f32.
 
 Then the kernel table, the card line again, and the last line
 ``{"ok": true, "device": {...}}``.
@@ -58,6 +68,21 @@ MAIN_SHAPE = (8192, 12, 101, 24)
 CLI_SHAPES = ((4096, 12, 101, 24), (2048, 12, 101, 24))
 # the MAE imputer's blocks (L <= 16, hd 64) and the kernel's edges
 OTHER_SHAPES = ((4096, 12, 16, 64), (4096, 12, 128, 24), (4096, 12, 1, 24))
+# the imputer at the batch path's 4096-cell dispatch: the encoder's 12
+# heads over n_present + 1 tokens (15: the (3, 5) mosaic missing one
+# marker; 7: the (1, 7) mosaic missing one), the decoder's 8 heads over
+# n_tiles + 1 (16, 8); and the immune_full classifier (vit_l, hd 48)
+BATCH_SHAPES = ((4096, 12, 15, 64), (4096, 12, 7, 64), (4096, 8, 16, 64),
+                (4096, 8, 8, 64), (4096, 12, 101, 48))
+# instantiations on the paths the smoke drives: L = 101 with hd 24 and
+# 48, L <= 16 with hd 64, and the f32 kernel
+ON_PATH = ("attention_bf16<7,3>", "attention_bf16<7,6>",
+           "attention_bf16<1,8>", "attention_f32")
+# a marker no panel uses: it takes CD68's place in the batch's list
+NOT_A_PANEL_MARKER = "Pax5"
+# the batch path's slides: (h, w, cells, seed), 15 channels each
+BATCH_SLIDES = ((2048, 2048, 10_000, 10), (2048, 1024, 5_000, 11),
+                (1024, 1024, 2_500, 12))
 
 
 def emit(phase: str, **fields) -> None:
@@ -231,15 +256,13 @@ def kernel_kind(name: str) -> str:
         return "layer norm"
     if "gelu" in low:
         return "gelu"
+    if "index" in low or "gather" in low:
+        return "gather / index"
     return "other elementwise"
 
 
 def profile_forward(cells: int = 4096) -> dict:
-    """One bf16 immune_base forward at ``cells`` patches under
-    torch.profiler: device time by kernel and by kind. Without device time
-    in the trace it reports the CUDA-event time alone."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """One bf16 immune_base forward at ``cells`` patches, profiled."""
     from ribca_tpu_torch.models.params import random_vit_tree, vit_state_dict
     from ribca_tpu_torch.models.vit import build_panel_model, cast_for_compute
 
@@ -249,9 +272,20 @@ def profile_forward(cells: int = 4096) -> dict:
     model = cast_for_compute(model.to("cuda").eval(), torch.bfloat16)
     x = torch.randn(cells, 7, 40, 40, device="cuda",
                     generator=torch.Generator(device="cuda").manual_seed(4))
+    return profile_call("profile", lambda: model(x),
+                        {"cells": cells, "dtype": "bfloat16",
+                         "forward": "immune_base vit_s"})
+
+
+def profile_call(phase: str, fn, row: dict) -> dict:
+    """``fn`` (one forward or dispatch) under torch.profiler: device time
+    by kernel and by kind, emitted as ``phase``. Without device time in
+    the trace it reports the CUDA-event time alone."""
+    from torch.profiler import ProfilerActivity, profile
+
+    row = dict(row)
     with torch.inference_mode():
-        event_ms = cuda_ms(lambda: model(x), reps=5, warmup=2)
-        row = {"cells": cells, "dtype": "bfloat16", "forward_ms": event_ms}
+        row["forward_ms"] = cuda_ms(fn, reps=5, warmup=2)
         # only the profiler's own calls are guarded (the trace is
         # information); the forward runs outside, so its failure stops here
         try:
@@ -262,7 +296,7 @@ def profile_forward(cells: int = 4096) -> dict:
             prof = None
             row["profiler"] = "failed: " + traceback.format_exc()[-2000:]
         t0 = time.perf_counter()
-        model(x)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels, counts = {}, {}
@@ -280,12 +314,12 @@ def profile_forward(cells: int = 4096) -> dict:
         except Exception:
             row["profiler"] = "failed: " + traceback.format_exc()[-2000:]
     if "profiler" in row:
-        emit("profile", **row)
+        emit(phase, **row)
         return row
     device_ms = sum(kernels.values())
     if device_ms <= 0:
         row["profiler"] = "the trace holds no device time"
-        emit("profile", **row)
+        emit(phase, **row)
         return row
     kinds = {}
     for name, ms in kernels.items():
@@ -306,11 +340,55 @@ def profile_forward(cells: int = 4096) -> dict:
         "top": [{"name": n[:160], "ms": ms, "launches": counts[n]}
                 for n, ms in top],
     })
-    emit("profile", **row)
+    emit(phase, **row)
     return row
 
 
-# -- phases 5 and 6 -----------------------------------------------------------
+def check_imputer(cells: int = 128) -> dict:
+    """The immune_full MAE on seeded patches with CD68 missing, f32: the
+    composite on the card (the kernel in all 20 blocks) against the CPU's
+    (plain attention), same seeded weights."""
+    from ribca_tpu_torch.models.mae import (
+        ImputationPlan,
+        build_imputer_model,
+        impute,
+    )
+    from ribca_tpu_torch.models.params import mae_state_dict, random_mae_tree
+    from ribca_tpu_torch.ops.attention import fused_attention
+    from ribca_tpu_torch.panels.vocab import PANELS
+
+    panel = "immune_full"
+    index = [-1 if m == "CD68" else i for i, m in enumerate(PANELS[panel])]
+    state = mae_state_dict(random_mae_tree(panel, seed=1))
+    x = torch.from_numpy(np.random.default_rng(5).normal(
+        size=(cells, 15, 40, 40)).astype(np.float32))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = build_imputer_model(panel)
+        model.load_state_dict(state)
+        model = model.to(dev).eval()
+        before = fused_attention.launches
+        with torch.inference_mode():
+            out[dev] = impute(model, ImputationPlan(panel, index, dev),
+                              x.to(dev)).cpu()
+        launched = fused_attention.launches - before
+        if launched != (20 if dev == "cuda" else 0):
+            raise AssertionError(f"{dev} imputation launched the attention "
+                                 f"kernel {launched} times (want 20 on the "
+                                 "card)")
+    diff = float((out["cuda"] - out["cpu"]).abs().max())
+    kept = [i for i, v in enumerate(index) if v != -1]
+    if not (torch.isfinite(out["cuda"]).all() and diff <= 1e-4
+            and torch.equal(out["cuda"][:, kept], x[:, kept])):
+        raise AssertionError(f"MAE imputation on the card disagrees with "
+                             f"the CPU: max |diff| {diff}")
+    row = {"panel": panel, "cells": cells, "missing": ["CD68"],
+           "max_abs_composite_diff": diff, "atol": 1e-4}
+    emit("imputer", **row)
+    return row
+
+
+# -- phases 5, 6 and 7 --------------------------------------------------------
 
 
 def make_slide(h: int, w: int, n_cells: int, channels: int, seed: int):
@@ -343,41 +421,53 @@ def make_slide(h: int, w: int, n_cells: int, channels: int, seed: int):
     return img.astype(np.uint16), mask
 
 
-def write_inputs(workdir: str, h: int, w: int, n_cells: int, seed: int):
+def write_inputs(workdir: str, name: str, markers: list, slides: list):
+    """Seeded slides ((h, w, n_cells, seed) each, one channel per marker),
+    their masks, the marker list and a batch CSV; returns (marker file,
+    CSV, cells per slide)."""
     from PIL import Image
 
     from ribca_tpu_torch.io import write_tiff
     from ribca_tpu_torch.io.manifest import write_manifest
-    from ribca_tpu_torch.panels.vocab import PANELS
 
-    img, mask = make_slide(h, w, n_cells, 7, seed)
-    img_path = os.path.join(workdir, f"slide_{h}.tif")
-    mask_path = os.path.join(workdir, f"mask_{h}.png")
-    write_tiff(img_path, img)
-    Image.fromarray(mask.astype(np.uint16)).save(mask_path)
-    markers = os.path.join(workdir, "markers.txt")
-    with open(markers, "w") as f:
-        f.write("\n".join(PANELS["immune_base"]) + "\n")
-    manifest = os.path.join(workdir, f"images_{h}.csv")
-    write_manifest([(img_path, mask_path)], manifest)
-    return markers, manifest, int(len(np.unique(mask)) - 1)
+    pairs, counts = [], []
+    for h, w, n_cells, seed in slides:
+        img, mask = make_slide(h, w, n_cells, len(markers), seed)
+        img_path = os.path.join(workdir, f"{name}_{seed}.tif")
+        mask_path = os.path.join(workdir, f"{name}_mask_{seed}.png")
+        write_tiff(img_path, img)
+        Image.fromarray(mask.astype(np.uint16)).save(mask_path)
+        pairs.append((img_path, mask_path))
+        counts.append(int(len(np.unique(mask)) - 1))
+    marker_file = os.path.join(workdir, f"{name}_markers.txt")
+    with open(marker_file, "w") as f:
+        f.write("\n".join(markers) + "\n")
+    manifest = os.path.join(workdir, f"{name}.csv")
+    write_manifest(pairs, manifest)
+    return marker_file, manifest, counts
 
 
 def write_weights(models_dir: str) -> None:
-    """Seeded random immune_base classifier in the reference's .pth layout:
-    torch's default init, with a zero-bias, wide head so that the labels
-    split between classes (on the reference slide this seed gives two
-    classes in about equal parts), which makes the label checks bite."""
+    """Seeded random classifiers (immune_base, and immune_full's vit_l) and
+    MAE imputers in the reference's .pth layout: torch's default init,
+    with a zero-bias, wide classifier head so that the labels split
+    between classes (on the reference slide this seed gives two classes
+    in about equal parts), which makes the label checks bite."""
+    from ribca_tpu_torch.models.mae import build_imputer_model
     from ribca_tpu_torch.models.vit import build_panel_model
 
-    torch.manual_seed(3)
-    model = build_panel_model("immune_base")
-    torch.nn.init.normal_(model.pos_embed, std=0.02)
-    torch.nn.init.zeros_(model.head.bias)
-    torch.nn.init.normal_(model.head.weight, std=0.5)
     os.makedirs(models_dir, exist_ok=True)
-    torch.save({"model": model.state_dict()},
-               os.path.join(models_dir, "immune_base.pth"))
+    for seed, panel in enumerate(("immune_base", "immune_full"), start=3):
+        torch.manual_seed(seed)
+        model = build_panel_model(panel)
+        torch.nn.init.normal_(model.pos_embed, std=0.02)
+        torch.nn.init.zeros_(model.head.bias)
+        torch.nn.init.normal_(model.head.weight, std=0.5)
+        torch.save({"model": model.state_dict()},
+                   os.path.join(models_dir, f"{panel}.pth"))
+        torch.manual_seed(seed + 10)
+        torch.save({"model": build_imputer_model(panel).state_dict()},
+                   os.path.join(models_dir, f"{panel}_impute.pth"))
 
 
 def annotate(markers, manifest, main_dir, models_dir, device, dtype):
@@ -393,36 +483,52 @@ def annotate(markers, manifest, main_dir, models_dir, device, dtype):
     return ann
 
 
-def check_reference(workdir: str, models_dir: str) -> dict:
-    markers, manifest, n = write_inputs(workdir, 256, 256, 150, seed=3)
-    runs = {dev: annotate(markers, manifest,
-                          os.path.join(workdir, f"ref_{dev}"), models_dir,
+def check_reference(workdir: str, models_dir: str, name: str, markers,
+                    slides) -> dict:
+    """The f32 Annotator on the card against the CPU on a small batch."""
+    marker_file, manifest, counts = write_inputs(workdir, name, markers,
+                                                 slides)
+    runs = {dev: annotate(marker_file, manifest,
+                          os.path.join(workdir, f"{name}_{dev}"), models_dir,
                           dev, "float32")
             for dev in ("cuda", "cpu")}
     gpu, cpu = runs["cuda"], runs["cpu"]
-    conf = float(np.abs(gpu.confidence[0] - cpu.confidence[0]).max())
-    inten = float(np.abs(gpu.intensity_full[0]
-                         - cpu.intensity_full[0]).max())
+    conf = max(float(np.abs(g - c).max())
+               for g, c in zip(gpu.confidence, cpu.confidence))
+    inten = max(float(np.abs(g - c).max())
+                for g, c in zip(gpu.intensity_full, cpu.intensity_full))
     same = gpu.annotations == cpu.annotations
-    if not (len(gpu.annotations[0]) == n and same and conf <= 1e-4
-            and inten <= 1e-5):
+    if not ([len(a) for a in gpu.annotations] == counts and same
+            and conf <= 1e-4 and inten <= 1e-5):
         raise AssertionError(
-            f"f32 Annotator on the card disagrees with the CPU: labels "
-            f"equal {same}, max |conf diff| {conf}, max |intensity diff| "
-            f"{inten}")
-    row = {"cells": n, "labels_equal": same, "max_abs_conf_diff": conf,
+            f"f32 Annotator on the card disagrees with the CPU ({name}): "
+            f"labels equal {same}, max |conf diff| {conf}, max |intensity "
+            f"diff| {inten}")
+    imputing = [s.panel for s in gpu._runner.specs if s.imputer is not None]
+    row = {"batch": name, "cells": counts, "imputing": imputing,
+           "dispatches": gpu._runner.dispatches,
+           "pad_fraction": gpu.packer.pad_fraction,
+           "labels_equal": same, "max_abs_conf_diff": conf,
            "max_abs_intensity_diff": inten,
-           "label_kinds": sorted(set(cpu.annotations[0]))}
+           "label_kinds": sorted({x for a in cpu.annotations for x in a})}
     emit("reference", **row)
     return row
+
+
+def device_seconds(timings: dict) -> float:
+    """The Annotator's device time: its per-image stages plus the cohort
+    packer's last dispatch, which runs after the last image."""
+    return timings["device.pipeline"] + timings["device.finalize"]
 
 
 def run_end_to_end(workdir: str, models_dir: str) -> dict:
     from ribca_tpu_torch import cli
     from ribca_tpu_torch.ops.attention import fused_attention
+    from ribca_tpu_torch.panels.vocab import PANELS
 
     t0 = time.perf_counter()
-    markers, manifest, n = write_inputs(workdir, 2048, 2048, 10_000, seed=0)
+    markers, manifest, (n,) = write_inputs(
+        workdir, "slide", PANELS["immune_base"], [(2048, 2048, 10_000, 0)])
     setup_s = time.perf_counter() - t0
     main_dir = os.path.join(workdir, "e2e_bf16")
 
@@ -462,8 +568,7 @@ def run_end_to_end(workdir: str, models_dir: str) -> dict:
     row = {
         "image": [7, 2048, 2048], "cells": n, "dispatches": dispatches,
         "attention_launches": launches, "slide_setup_s": setup_s,
-        "cli_wall_s": wall,
-        "cells_per_s": n / timings["device.pipeline"],
+        "cli_wall_s": wall, "cells_per_s": n / device_seconds(timings),
         "stage_s": timings,
         "label_kinds": sorted(set(ann.annotations[0])),
     }
@@ -474,7 +579,154 @@ def run_end_to_end(workdir: str, models_dir: str) -> dict:
     agree = float(np.mean(np.asarray(f32.annotations[0])
                           == np.asarray(ann.annotations[0])))
     emit("end_to_end", dtype="float32",
-         cells_per_s=n / f32.logger.timings["device.pipeline"],
+         cells_per_s=n / device_seconds(f32.logger.timings),
+         stage_s=f32.logger.timings, bf16_f32_label_agreement=agree)
+    row["launches"] = launches
+    return row
+
+
+def packer_plan(counts, pack: int, chunk_cells: int):
+    """(dispatches, rows) the cohort packer's rules give for images of
+    ``counts`` cells, and the rows without a packer: chunks of at most
+    ``pack`` cells, each image's last one at its power-of-two bucket (>= 64);
+    full chunks go straight out, the others pool across images, a full
+    pool goes out at ``pack`` rows and the remainder at its bucket."""
+    def bucket(n, cap):
+        size = 64
+        while size < n and size < cap:
+            size *= 2
+        return min(size, cap)
+
+    dispatches = rows = fill = solo_rows = 0
+    for n in counts:
+        chunk = min(pack, bucket(min(max(n, 1), chunk_cells), chunk_cells))
+        for start in range(0, n, chunk):
+            valid = min(chunk, n - start)
+            solo_rows += bucket(valid, chunk)
+            if valid == pack:
+                dispatches, rows = dispatches + 1, rows + pack
+                continue
+            fill += valid
+            while fill >= pack:
+                dispatches, rows, fill = dispatches + 1, rows + pack, \
+                    fill - pack
+    if fill:
+        dispatches, rows = dispatches + 1, rows + bucket(fill, pack)
+    return dispatches, rows, solo_rows
+
+
+def dispatch_split(runner, n_channels: int, cells: int = 4096) -> dict:
+    """CUDA-event medians of one full ensemble dispatch of the run's
+    runner on seeded patches, and of its imputer and classifier alone."""
+    from ribca_tpu_torch.models.mae import impute
+    from ribca_tpu_torch.ops.patches import apply_panel_gather
+
+    (spec,) = runner.specs
+    x = torch.randn(cells, n_channels, 40, 40, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(6))
+    dispatches = runner.dispatches
+    with torch.inference_mode():
+        panel_x = apply_panel_gather(x, spec.gather)
+        imputed = impute(spec.imputer, spec.plan, panel_x)
+        split = {
+            "cells": cells,
+            "dispatch": cuda_ms(lambda: runner.run_chunk(x), reps=5),
+            "imputer": cuda_ms(
+                lambda: impute(spec.imputer, spec.plan, panel_x), reps=5),
+            "classifier": cuda_ms(lambda: spec.model(imputed), reps=5),
+        }
+        split["profile"] = profile_call(
+            "batch_dispatch_profile", lambda: runner.run_chunk(x),
+            {"cells": cells, "dtype": "bfloat16",
+             "forward": "immune_full MAE + vit_l dispatch"})
+    runner.dispatches = dispatches
+    split["imputer_share"] = split["imputer"] / split["dispatch"]
+    return split
+
+
+def run_batch_imputation(workdir: str, models_dir: str) -> dict:
+    """The CLI's batch run with a missing immune marker: MAE imputation in
+    front of the immune_full classifier, one cohort packer for the run."""
+    from ribca_tpu_torch import cli
+    from ribca_tpu_torch.ops.attention import fused_attention
+    from ribca_tpu_torch.panels.vocab import PANELS
+
+    markers = [NOT_A_PANEL_MARKER if m == "CD68" else m
+               for m in PANELS["immune_full"]]
+    t0 = time.perf_counter()
+    marker_file, manifest, counts = write_inputs(workdir, "batch", markers,
+                                                 BATCH_SLIDES)
+    setup_s = time.perf_counter() - t0
+    main_dir = os.path.join(workdir, "batch_bf16")
+
+    fused_attention.launches = 0
+    t0 = time.perf_counter()
+    ann = cli.main([
+        "--marker-list-path", marker_file, "--batch-csv", manifest,
+        "--batch-id", "batch", "--main-dir", main_dir,
+        "--models-dir", models_dir,
+    ])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fused_attention.launches
+    runner, packer = ann._runner, ann.packer
+    dispatches = runner.dispatches
+    # the CLI's default --bs 128: 4096-cell chunks, pack_cells capped there
+    plan = packer_plan(counts, pack=4096, chunk_cells=4096)
+
+    problems = []
+    heads = [(s.panel, s.imputer is not None) for s in runner.specs]
+    if heads != [("immune_full", True)]:
+        problems.append(f"heads {heads}, want the imputing immune_full")
+    results = os.path.join(main_dir, "results")
+    for i, n in enumerate(counts):
+        with open(os.path.join(results, f"batch_annotation_{i}.csv")) as f:
+            rows = f.read().splitlines()[1:]
+        confs = np.asarray([float(r.split(",")[2]) for r in rows])
+        if len(rows) != n:
+            problems.append(f"image {i}: CSV has {len(rows)} rows for {n} "
+                            "cells")
+        if np.isnan(confs).any():
+            problems.append(f"image {i}: NaN confidences")
+    if dispatches == 0 or launches != 32 * dispatches:
+        problems.append(f"{launches} attention launches for {dispatches} "
+                        "ensemble dispatches (want 32 each: 12 in the "
+                        "classifier, 12 + 8 in the imputer)")
+    if (dispatches, packer.dispatched_rows) != plan[:2]:
+        problems.append(f"{dispatches} dispatches of "
+                        f"{packer.dispatched_rows} rows, the packer's plan "
+                        f"is {plan[0]} of {plan[1]}")
+    if packer.valid_rows != sum(counts):
+        problems.append(f"{packer.valid_rows} valid rows for "
+                        f"{sum(counts)} cells")
+    if problems:
+        raise AssertionError("; ".join(problems))
+
+    split = dispatch_split(runner, len(markers))
+    timings = ann.logger.timings
+    row = {
+        "images": [[15, h, w] for h, w, _, _ in BATCH_SLIDES],
+        "cells": counts,
+        "dispatches": dispatches, "attention_launches": launches,
+        "dispatched_rows": packer.dispatched_rows,
+        "pad_fraction": packer.pad_fraction,
+        "rows_without_packer": plan[2],
+        "pad_fraction_without_packer": 1 - sum(counts) / plan[2],
+        "slide_setup_s": setup_s, "cli_wall_s": wall,
+        "cells_per_s": sum(counts) / device_seconds(timings),
+        "stage_s": timings,
+        "label_kinds": sorted({x for a in ann.annotations for x in a}),
+        "dispatch_ms": split,
+    }
+    emit("batch_imputation", dtype="bfloat16", **row)
+
+    f32 = annotate(marker_file, manifest, os.path.join(workdir, "batch_f32"),
+                   models_dir, "cuda", "float32")
+    agree = float(np.mean(np.concatenate(
+        [np.asarray(a) == np.asarray(b)
+         for a, b in zip(f32.annotations, ann.annotations)])))
+    emit("batch_imputation", dtype="float32",
+         cells_per_s=sum(counts) / device_seconds(f32.logger.timings),
          stage_s=f32.logger.timings, bf16_f32_label_agreement=agree)
     row["launches"] = launches
     return row
@@ -486,6 +738,7 @@ def main() -> int:
               "NVIDIA GPU", file=sys.stderr)
         return 1
     from ribca_tpu_torch import kernels
+    from ribca_tpu_torch.panels.vocab import PANELS
     from ribca_tpu_torch.utils.device import resolve_device
 
     card = card_line()
@@ -498,11 +751,9 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = kernels.build_all(force=True)
     usage = ptxas_usage(logs["attention"])
-    # the main path's instantiations: L = 101 (7 row tiles), hd = 24 (3)
     emit("build", seconds=time.perf_counter() - t0,
          kernels=sorted(kernels.sources()),
-         ptxas={k: v for k, v in usage.items()
-                if k in ("attention_bf16<7,3>", "attention_f32")},
+         ptxas={k: v for k, v in usage.items() if k in ON_PATH},
          instantiations=len(usage),
          max_registers=max(v.get("registers", 0) for v in usage.values()),
          spilling=sorted(k for k, v in usage.items()
@@ -522,29 +773,44 @@ def main() -> int:
     for shape in OTHER_SHAPES:
         for dt in (torch.bfloat16, torch.float32):
             check_attention(shape, dt, gen)
+    batch_rows = [check_attention(shape, dt, gen) for shape in BATCH_SHAPES
+                  for dt in (torch.bfloat16, torch.float32)]
     torch.cuda.empty_cache()
 
     check_model()
     profile_forward()
+    check_imputer()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=HERE) as wd:
         models_dir = os.path.join(wd, "models")
         write_weights(models_dir)
-        check_reference(wd, models_dir)
+        check_reference(wd, models_dir, "ref", PANELS["immune_base"],
+                        [(256, 256, 150, 3)])
+        check_reference(wd, models_dir, "ref_impute",
+                        [m for m in PANELS["immune_base"] if m != "CD11c"],
+                        [(256, 256, 150, 4), (192, 256, 100, 5)])
         e2e = run_end_to_end(wd, models_dir)
+        batch = run_batch_imputation(wd, models_dir)
 
     main_row, f32_row = main_rows[torch.bfloat16], main_rows[torch.float32]
     print(json.dumps({"kernels": [{
         "name": "fused_attention", "route": "cuda",
         "source": "ribca_tpu_torch/csrc/attention.cu",
         "replaces": "ribca_tpu/ops/attention.py:80",
-        "launches": e2e["launches"],
+        "launches": batch["launches"],
+        "launches_by_path": {"single_image": e2e["launches"],
+                             "batch_imputation": batch["launches"]},
         "max_abs_err": main_row["max_abs_err"],
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
         "f32_ms": f32_row["ms"], "f32_bound_ms": f32_row["bound_ms"],
         "f32_max_abs_err": f32_row["max_abs_err"],
+        "batch_path_shapes": [
+            {k: r[k] for k in ("shape", "dtype", "max_abs_err", "ms",
+                               "plain_ms", "bound_ms", "bound_by",
+                               "library_ms")}
+            for r in batch_rows],
     }]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

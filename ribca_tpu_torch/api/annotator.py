@@ -9,13 +9,14 @@ clear_tmp()`` plus the attributes downstream code reads
 ``confidence``, ``intensity_full``).
 
 ``preprocess()`` only resolves the manifest; ``predict()`` streams each
-image through normalization, patch extraction and the ensemble on the
-device (engine/pipeline.py) without tmp ``.pt`` files; the ``tmp/`` dir is
-still created and cleaned for workflow parity.
+image through normalization, patch extraction and the ensemble (with MAE
+imputation of missing immune markers when ``infer`` is on) on the device
+(engine/pipeline.py) without tmp ``.pt`` files, sharing partly filled
+ensemble dispatches across the images of the run (engine/packer.py); the
+``tmp/`` dir is still created and cleaned for workflow parity.
 
 Not ported yet: tissue regions, neighborhoods, heatmaps, composition pies,
-UMAP, extra-cell-type discovery (``min_cells > 0`` raises) and MAE
-imputation (engine/ensemble.py raises).
+UMAP and extra-cell-type discovery (``min_cells > 0`` raises).
 """
 
 from __future__ import annotations
@@ -26,7 +27,11 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 from ribca_tpu_torch.engine.ensemble import VOTE_STATS_KEY, EnsembleRunner
-from ribca_tpu_torch.engine.pipeline import run_image
+from ribca_tpu_torch.engine.pipeline import (
+    make_packer,
+    run_image,
+    trace_stage,
+)
 from ribca_tpu_torch.engine.voting import (
     PanelProbs,
     finish_votes,
@@ -113,6 +118,8 @@ class Annotator:
         self.cell_types = np.array([], dtype=object)
         self.colors: list = []
         self._runner = None
+        # the last predict()'s cohort packer, which holds its row counts
+        self.packer = None
 
     # -- pipeline -----------------------------------------------------------
 
@@ -212,7 +219,9 @@ class Annotator:
 
     def _predict_images(self, cfg, runner) -> None:
         """Decode image i+1 on a host thread while image i runs on the
-        device."""
+        device. One cohort packer serves the whole run: the tail cells of
+        image i and the head cells of image i+1 share ensemble dispatches,
+        so bucket padding is paid once per run, not once per image."""
 
         def decode(paths):
             img_path, mask_path = paths
@@ -220,6 +229,8 @@ class Annotator:
 
         pairs = list(zip(self._image_paths, self._mask_paths))
         self.records = []
+        packer = self.packer = make_packer(cfg, runner,
+                                           self.channel_parser.n_markers)
         with ThreadPoolExecutor(max_workers=1) as pool:
             pending = pool.submit(decode, pairs[0]) if pairs else None
             for i, (img_path, _) in enumerate(pairs):
@@ -231,12 +242,19 @@ class Annotator:
                 )
                 with self.logger.stage("device.pipeline"):
                     record = run_image(image, mask, cfg, runner,
-                                       tracer=self.logger)
+                                       packer=packer, tracer=self.logger)
                 self.records.append(record)
                 self.logger.log(
                     f"Processed {os.path.basename(img_path)}: "
                     f"{record.n_cells} cells"
                 )
+            with trace_stage(self.logger, "device.finalize", self.device,
+                             quiet=False):
+                packer.finalize()
+        self.logger.log(
+            "Ensemble dispatch padding: "
+            f"{packer.pad_fraction:.1%} of rows"
+        )
 
     def merge_by_voting(self) -> None:
         self.annotations, self.confidence = [], []

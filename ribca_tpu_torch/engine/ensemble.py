@@ -8,15 +8,18 @@ device:
 
     full-channel patches (B, C, 40, 40)
       -> per-panel channel gather (ops/patches.py)
+      -> optional MAE imputation of missing channels (models/mae.py)
       -> ViT forward + f32 softmax per active head
       -> optional device vote stats (engine/voting.py)
 
-Parameters are cast once and stay on the device across chunks and images.
+Parameters (classifiers and imputers) are cast once and stay on the device
+across chunks and images.
 
 Head selection replicates model.py:241-349: exactly one immune head (full >
-extended > base) plus structure and nerve when matched. MAE imputation of
-missing immune markers (``infer`` with a missing marker) is not ported
-yet: such a run raises instead of quietly skipping the imputer.
+extended > base) plus structure and nerve when matched. Imputation applies
+only to immune panels with missing markers when ``infer`` is on
+(preprocess.py:268-281); without imputer weights (and with random init
+off) the classifier runs on the blank-filled channels, as in ribca_tpu.
 """
 
 from __future__ import annotations
@@ -29,6 +32,11 @@ from ribca_tpu_torch.engine.voting import (
     VOTE_STATS_WIDTH,
     build_vote_plan,
     device_vote_stats,
+)
+from ribca_tpu_torch.models.mae import (
+    ImputationPlan,
+    build_imputer_model,
+    impute,
 )
 from ribca_tpu_torch.models.vit import build_panel_model, cast_for_compute
 from ribca_tpu_torch.ops.patches import (
@@ -64,6 +72,16 @@ class _HeadSpec:
     panel: str
     gather: PanelGather
     model: torch.nn.Module
+    imputer: torch.nn.Module | None = None
+    plan: ImputationPlan | None = None
+
+
+def _on_device(model: torch.nn.Module, state: dict, dtype, device):
+    """Load ``state``, cast for compute once and move to the device."""
+    model.load_state_dict(state)
+    model = cast_for_compute(model, dtype).to(device).eval()
+    model.requires_grad_(False)
+    return model
 
 
 class EnsembleRunner:
@@ -92,23 +110,26 @@ class EnsembleRunner:
 
         for panel in prediction_panels(parser):
             indices = parser.indices[panel]
-            if infer and -1 in indices and panel in IMPUTER_MOSAIC:
-                raise NotImplementedError(
-                    f"{panel} is missing a marker and infer=True asks for "
-                    "MAE imputation, which ribca_tpu_torch does not port "
-                    "yet; run with infer=False or use ribca_tpu"
-                )
             state = registry.classifier_params(panel)
             if state is None:
                 if logger is not None:
                     logger.log(f"Skipping {panel}: no weights")
                 continue
-            model = build_panel_model(panel)
-            model.load_state_dict(state)
-            model = cast_for_compute(model, dtype).to(self.device).eval()
-            model.requires_grad_(False)
-            self.specs.append(_HeadSpec(
-                panel, build_panel_gather(indices, n_channels), model))
+            spec = _HeadSpec(
+                panel, build_panel_gather(indices, n_channels),
+                _on_device(build_panel_model(panel), state, dtype,
+                           self.device))
+            needs_impute = (
+                infer and -1 in indices
+                and panel in IMPUTER_MOSAIC  # immune panels only
+            )
+            mae_state = (registry.imputer_params(panel) if needs_impute
+                         else None)
+            if mae_state is not None:
+                spec.imputer = _on_device(build_imputer_model(panel),
+                                          mae_state, dtype, self.device)
+                spec.plan = ImputationPlan(panel, indices, self.device)
+            self.specs.append(spec)
 
         if not self.specs:
             raise ValueError("No classifier heads available to run")
@@ -135,6 +156,8 @@ class EnsembleRunner:
         out = {}
         for s in self.specs:
             x = apply_panel_gather(patches_full, s.gather)
+            if s.imputer is not None:
+                x = impute(s.imputer, s.plan, x)
             out[s.panel] = torch.softmax(s.model(x).float(), dim=-1)
         self.dispatches += 1
         if self.vote_plan is not None:

@@ -5,21 +5,23 @@ The reference hands off between preprocessing and prediction through
 10k-cell ``.pt`` files on disk (preprocess.py:132-135, model.py:369-391).
 Here the hand-off is device memory: patch chunks come out of
 ops/patches.py on the device, flow straight into the ensemble
-(engine/ensemble.py), and only the per-cell results and mean intensities
-return to the host, in one copy per image.
+(engine/ensemble.py) through the cohort packer (engine/packer.py), and
+only the per-cell results and mean intensities return to the host.
 
 Host <-> device copies go through pinned host buffers with
 ``non_blocking=True``. The image and mask upload on a side stream while
 the host scans the mask for cell extents; the compute stream waits on a
-CUDA event recorded after the copies. Each image ends with one
-device-to-host copy, waited on through its event. With a tracer (the
-Annotator's Logger) every sub-stage synchronizes at its end, so
-``trace.json`` charges device time to the stage that queued it; the device
-then idles while the host queues the next chunk's work.
+CUDA event recorded after the copies. Each ensemble dispatch's outputs
+and each image's intensities come back through one pinned copy and one
+event wait (engine/packer.to_host). With a tracer (the Annotator's
+Logger) every sub-stage synchronizes at its end, so ``trace.json``
+charges device time to the stage that queued it; the device then idles
+while the host queues the next chunk's work.
 
-Each image runs its own chunks: ribca_tpu's cohort packer (sharing partly
-filled dispatches across the images of a batch) and its banded whole-slide
-route are not ported yet. An image above ``device_image_budget_bytes``
+Chunks go to a cohort packer, which shares partly filled ensemble
+dispatches across the images of a batch run (the Annotator passes one per
+run; without one, the image gets its own). ribca_tpu's banded whole-slide
+route is not ported yet: an image above ``device_image_budget_bytes``
 raises.
 """
 
@@ -32,6 +34,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ribca_tpu_torch.engine.packer import (
+    CohortPacker,
+    chunk_size_for,
+    to_host,
+)
 from ribca_tpu_torch.ops.extents import CellExtents, cell_extents
 from ribca_tpu_torch.ops.normalize import (
     cast_f32_masked,
@@ -40,8 +47,6 @@ from ribca_tpu_torch.ops.normalize import (
 )
 from ribca_tpu_torch.ops.patches import extract_patches
 from ribca_tpu_torch.ops.shapes import bucket_dim, pad_image_chw, pad_mask_hw
-
-MIN_CHUNK = 64
 
 
 def trace_stage(tracer, name: str, device: torch.device,
@@ -74,17 +79,14 @@ class ImageRecord:
         return len(self.cell_ids)
 
 
-def chunk_size_for(n: int, cap: int) -> int:
-    """Power-of-two bucket >= n (>= MIN_CHUNK), capped at ``cap``."""
-    size = MIN_CHUNK
-    while size < n and size < cap:
-        size *= 2
-    return min(size, cap)
-
-
 def pack_size(config) -> int:
     """Cells per ensemble dispatch."""
     return min(config.pack_cells, config.chunk_cells)
+
+
+def make_packer(config, runner, n_channels: int) -> CohortPacker:
+    """A cohort packer for ``runner`` sized by the config."""
+    return CohortPacker(runner, pack_size(config), n_channels)
 
 
 def patch_size_for(config) -> int:
@@ -113,20 +115,6 @@ def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     if device.type == "cpu":
         return host
     return host.pin_memory().to(device, non_blocking=True)
-
-
-def _to_host(tensors: list[torch.Tensor]) -> list[np.ndarray]:
-    """Copy device tensors into pinned host buffers; one event wait."""
-    if not tensors or tensors[0].device.type == "cpu":
-        return [t.numpy() for t in tensors]
-    hosts = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-             for t in tensors]
-    for h, t in zip(hosts, tensors):
-        h.copy_(t, non_blocking=True)
-    done = torch.cuda.Event()
-    done.record(torch.cuda.current_stream(tensors[0].device))
-    done.synchronize()
-    return [h.numpy() for h in hosts]
 
 
 @dataclasses.dataclass
@@ -210,9 +198,15 @@ def preprocess_image(st: StagedImage, config):
 
 
 @torch.inference_mode()
-def run_image(image, mask, config, runner, tracer=None) -> ImageRecord:
+def run_image(image, mask, config, runner, packer=None,
+              tracer=None) -> ImageRecord:
     """Full single-image flow: returns per-panel probs (or vote stats) and
-    intensities."""
+    intensities.
+
+    ``packer`` (engine/packer.CohortPacker) shares partial ensemble
+    dispatches across the images of a batch run; with one, the record's
+    ``panel_probs`` are complete only after ``packer.finalize()``. Without
+    one, the image gets its own packer, finalized before return."""
     device = runner.device
     with trace_stage(tracer, "device.stage", device):
         st = stage_image(image, mask, config, device)
@@ -224,16 +218,20 @@ def run_image(image, mask, config, runner, tracer=None) -> ImageRecord:
     n = len(ids)
     patch = patch_size_for(config)
     true_h, true_w = st.true_hw
-    chunk = min(pack_size(config),
+    local_packer = packer is None
+    if local_packer:
+        packer = make_packer(config, runner, st.n_channels)
+    chunk = min(packer.pack,
                 chunk_size_for(min(max(n, 1), config.chunk_cells),
                                config.chunk_cells))
+    sink = packer.make_sink(n)
 
-    parts: dict[str, list] = {k: [] for k in runner.output_spec}
     int_parts = []
     for start in range(0, n, chunk):
         sel = ids[start:start + chunk]
         n_valid = len(sel)
-        # tail chunks drop to their power-of-two bucket
+        # tail chunks drop to their power-of-two bucket; the packer shares
+        # the bucket's pad rows with the next image's cells
         size = chunk_size_for(n_valid, chunk)
         cells = np.zeros((5, size), dtype=np.int32)
         cells[0, :n_valid] = sel
@@ -248,25 +246,19 @@ def run_image(image, mask, config, runner, tracer=None) -> ImageRecord:
                 prepadded=True,
             )
         with trace_stage(tracer, "device.ensemble", device):
-            out = runner.run_chunk(patches)
-        for key, val in out.items():
-            parts[key].append(val[:n_valid])
+            packer.submit(patches, n_valid, sink, start)
         int_parts.append(avg_int[:n_valid])
 
     with trace_stage(tracer, "device.download", device):
-        keys = list(parts)
-        stacked = [
-            torch.cat(parts[k]) if parts[k]
-            else torch.zeros((0, w), device=device)
-            for k, w in runner.output_spec.items()
-        ]
-        stacked.append(
+        (intensity,) = to_host([
             torch.cat(int_parts) if int_parts
             else torch.zeros((0, st.n_channels), device=device)
-        )
-        host = _to_host(stacked)
+        ])
     # preprocess.py:146-149, on the host in f32 as ribca_tpu does
-    intensity = (host[-1] + np.float32(1.0)) / np.float32(2.0)
+    intensity = (intensity + np.float32(1.0)) / np.float32(2.0)
+    if local_packer:
+        with trace_stage(tracer, "device.finalize", device):
+            packer.finalize()
 
     return ImageRecord(
         cell_ids=ids,
@@ -274,5 +266,5 @@ def run_image(image, mask, config, runner, tracer=None) -> ImageRecord:
         mean_col=ext.mean_col[ids],
         mask=st.mask_host,
         intensity_full=intensity,
-        panel_probs=dict(zip(keys, host[:-1])),
+        panel_probs=sink,
     )

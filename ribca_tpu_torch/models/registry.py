@@ -4,7 +4,8 @@ The port of ribca_tpu's ``models/registry.py``. The reference hardcodes
 cwd-relative ``.pth`` paths (model.py:189-239) and silently skips panels
 whose checkpoint is absent. Here a registry owns one models directory and
 resolves each classifier's weights, as a state dict of the port's
-VisionTransformer, in this order:
+VisionTransformer, and each imputer's, as a state dict of its
+MaskedAutoencoderViT, in this order:
 
   1. ``<name>.npz``  — ribca_tpu's converted Flax store, through the bridge
      in models/params.py (so one file serves both packages);
@@ -14,8 +15,8 @@ VisionTransformer, in this order:
      logged loudly and marks the run RANDOM_WEIGHTS.
 
 Checkpoint basenames follow the reference: ``immune_base``,
-``immune_extended``, ``immune_full``, ``struct``, ``nerve``. The MAE
-imputers (``<immune_panel>_impute``) are not ported yet.
+``immune_extended``, ``immune_full``, ``struct``, ``nerve`` and
+``<immune_panel>_impute`` for the MAE imputers.
 """
 
 from __future__ import annotations
@@ -26,7 +27,12 @@ import sys
 import torch
 
 from ribca_tpu_torch.models import store
-from ribca_tpu_torch.models.params import random_vit_tree, vit_state_dict
+from ribca_tpu_torch.models.params import (
+    mae_state_dict,
+    random_mae_tree,
+    random_vit_tree,
+    vit_state_dict,
+)
 from ribca_tpu_torch.models.vit import ARCH_WIDTHS
 from ribca_tpu_torch.panels.vocab import PANEL_MODEL_SPECS
 
@@ -79,10 +85,10 @@ class ModelRegistry:
         self._log(msg)
         print(msg, file=sys.stderr)
 
-    def _resolve(self, basename: str):
+    def _resolve(self, basename: str, bridge):
         npz = os.path.join(self.models_dir, f"{basename}.npz")
         if os.path.exists(npz):
-            return vit_state_dict(store.load_params(npz))
+            return bridge(store.load_params(npz))
         pth = os.path.join(self.models_dir, f"{basename}.pth")
         if os.path.exists(pth):
             return load_torch_checkpoint(pth)
@@ -94,7 +100,7 @@ class ModelRegistry:
         key = f"cls:{panel}"
         if key in self._cache:
             return self._cache[key]
-        sd = self._resolve(CLASSIFIER_BASENAME[panel])
+        sd = self._resolve(CLASSIFIER_BASENAME[panel], vit_state_dict)
         if sd is None:
             if not self.allow_random:
                 self._log(f"{panel} classifier weights not found")
@@ -103,5 +109,22 @@ class ModelRegistry:
             arch, in_chans, num_classes = PANEL_MODEL_SPECS[panel]
             sd = vit_state_dict(random_vit_tree(
                 in_chans, num_classes, ARCH_WIDTHS[arch], seed=0))
+        self._cache[key] = sd
+        return sd
+
+    def imputer_params(self, panel: str):
+        """State dict of an immune panel's MAE imputer, or None when
+        weights are missing and random init is disallowed."""
+        key = f"mae:{panel}"
+        if key in self._cache:
+            return self._cache[key]
+        basename = f"{CLASSIFIER_BASENAME[panel]}_impute"
+        sd = self._resolve(basename, mae_state_dict)
+        if sd is None:
+            if not self.allow_random:
+                self._log(f"{panel} imputer weights not found")
+                return None
+            self._warn_random(f"{panel} imputer")
+            sd = mae_state_dict(random_mae_tree(panel, seed=0))
         self._cache[key] = sd
         return sd

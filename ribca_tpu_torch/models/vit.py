@@ -128,14 +128,19 @@ class VisionTransformer(nn.Module):
         return self.head(x)
 
 
-def cast_for_compute(model: VisionTransformer,
-                     dtype: torch.dtype) -> VisionTransformer:
-    """Cast the matmul/conv parameters (and cls/pos) to ``dtype`` in place,
-    leaving every LayerNorm and the head in f32 as ribca_tpu's
-    ``EnsembleRunner._cast_params`` does."""
+# a parameter stays f32 when a component of its name starts with one of
+# these, as in ribca_tpu's ``EnsembleRunner._cast_params``: every LayerNorm
+# (``norm``, ``norm1``, ``norm2``, ``decoder_norm``), the classifier head
+# and the MAE's ``decoder_pred``
+KEEP_F32 = ("norm", "decoder_norm", "head", "decoder_pred")
+
+
+def cast_for_compute(model: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Cast the matmul/conv parameters (and cls/pos/mask tokens) of a ViT
+    or an MAE to ``dtype`` in place, leaving those under ``KEEP_F32`` in
+    f32."""
     for name, param in model.named_parameters():
-        top = name.split(".")[0]
-        if top in ("norm", "head") or ".norm" in name:
+        if any(part.startswith(KEEP_F32) for part in name.split(".")):
             continue
         param.data = param.data.to(dtype)
     return model

@@ -39,8 +39,10 @@ BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 PARTS = {0: "full", 1: "staging", 2: "compute"}
-# (shape, dtype, layout): the main path's shapes (an 8192-cell pack, the
-# CLI's 4096-cell dispatch, a slide's 2048-cell tail)
+# (shape, dtype, layout): the single-image path's shapes (an 8192-cell
+# pack, the CLI's 4096-cell dispatch, a slide's 2048-cell tail), then the
+# MAE's at the CLI's dispatch (encoder L = 13-16 with 3-0 tiles missing,
+# decoder 8 heads at L = 16)
 CASES = (
     ((8192, 12, 101, 24), torch.bfloat16, "fused"),
     ((8192, 12, 101, 24), torch.bfloat16, "contiguous"),
@@ -49,6 +51,13 @@ CASES = (
     ((2048, 12, 101, 24), torch.bfloat16, "fused"),
     ((8192, 12, 101, 24), torch.float32, "fused"),
     ((8192, 12, 101, 24), torch.float32, "contiguous"),
+    ((4096, 12, 13, 64), torch.bfloat16, "fused"),
+    ((4096, 12, 14, 64), torch.bfloat16, "fused"),
+    ((4096, 12, 15, 64), torch.bfloat16, "fused"),
+    ((4096, 12, 16, 64), torch.bfloat16, "fused"),
+    ((4096, 12, 15, 64), torch.bfloat16, "contiguous"),
+    ((4096, 12, 16, 64), torch.bfloat16, "contiguous"),
+    ((4096, 8, 16, 64), torch.bfloat16, "fused"),
 )
 
 

@@ -93,3 +93,90 @@ def test_kernel_refuses_a_width_the_pointers_do_not_allow(cuda):
                     1, 4, 101, 24, (ctypes.c_longlong * 12)(*strides), 16,
                     0.2, 1, torch.cuda.current_stream().cuda_stream)
     assert err == 1  # cudaErrorInvalidValue, nothing launched
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("length", [7, 8, 9, 10, 11, 13, 14, 15, 16])
+@pytest.mark.parametrize("heads", [8, 12])
+def test_kernel_matches_plain_at_the_mae_shapes(cuda, dtype, atol, length,
+                                                heads):
+    """The imputer's blocks: encoder 12 heads over n_present + 1 tokens,
+    decoder 8 heads over n_tiles + 1, head dim 64, fused qkv views."""
+    q, k, v = _inputs(37, length, heads, 64, dtype, cuda, "fused")
+    before = fused_attention.launches
+    out = fused_attention(q, k, v, 0.125)
+    torch.cuda.synchronize()
+    assert fused_attention.launches == before + 1
+    ref = reference_attention(q, k, v, 0.125)
+    assert (out.float() - ref.float()).abs().max().item() <= atol
+
+
+@pytest.mark.parametrize("panel,missing", [("immune_base", (5,)),
+                                           ("immune_full", (4, 9, 13))])
+def test_mae_on_the_card_matches_the_cpu(cuda, panel, missing):
+    """Full-size MAE imputation in f32: the card (kernel in all 20 blocks)
+    against the CPU (plain attention), same seeded weights."""
+    import numpy as np
+
+    from ribca_tpu_torch.models.mae import (
+        ImputationPlan,
+        build_imputer_model,
+        impute,
+    )
+    from ribca_tpu_torch.models.params import mae_state_dict, random_mae_tree
+    from ribca_tpu_torch.panels.vocab import IMPUTER_MOSAIC
+    from ribca_tpu_torch.utils.device import resolve_device
+
+    resolve_device("cuda")  # TF32 off
+    h, w = IMPUTER_MOSAIC[panel]
+    index = [-1 if i in missing else i for i in range(h * w)]
+    state = mae_state_dict(random_mae_tree(panel, seed=1))
+    x = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(32, h * w, 40, 40)).astype(np.float32))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = build_imputer_model(panel)
+        model.load_state_dict(state)
+        model = model.to(dev).eval()
+        before = fused_attention.launches
+        with torch.inference_mode():
+            out[dev] = impute(model, ImputationPlan(panel, index, dev),
+                              x.to(dev)).cpu()
+        assert fused_attention.launches - before == (
+            20 if dev == "cuda" else 0)
+    assert (out["cuda"] - out["cpu"]).abs().max().item() <= 1e-4
+    kept = [i for i in range(h * w) if i not in missing]
+    assert torch.equal(out["cuda"][:, kept], x[:, kept])
+
+
+def test_packer_on_the_card_matches_the_cpu(cuda):
+    """The pinned, event-waited copies of the cohort packer route the same
+    rows to the same sinks as the CPU path."""
+    import numpy as np
+
+    from ribca_tpu_torch.engine.packer import CohortPacker
+
+    class Runner:
+        output_spec = {"first": 3}
+
+        def __init__(self, device):
+            self.device = torch.device(device)
+
+        def run_chunk(self, patches):
+            return {"first": patches[:, :, 0, 0] * 2.0}
+
+    rng = np.random.default_rng(0)
+    pieces = [(rng.normal(size=(b, 3, 40, 40)).astype(np.float32), n)
+              for b, n in [(64, 40), (64, 45), (128, 128), (64, 64),
+                           (128, 100), (64, 7)]]
+    sinks = {}
+    for dev in ("cpu", "cuda"):
+        packer = CohortPacker(Runner(dev), 128, 3)
+        sinks[dev] = [packer.make_sink(n) for _, n in pieces]
+        for (p, n), sink in zip(pieces, sinks[dev]):
+            packer.submit(torch.from_numpy(p).to(dev), n, sink, 0)
+        packer.finalize()
+    for (p, n), a, b in zip(pieces, sinks["cpu"], sinks["cuda"]):
+        np.testing.assert_array_equal(a["first"], b["first"])
+        np.testing.assert_array_equal(b["first"], p[:n, :, 0, 0] * 2.0)

@@ -2,13 +2,16 @@
 
 ribca_tpu_torch's Annotator and ribca_tpu's run the same fixture with the
 same ``.npz`` weights in f32, with device voting on and off, and must give
-identical labels and close confidences, intensities and CSVs. The port's
+identical labels and close confidences, intensities and CSVs: one image
+with every marker, and a two-image batch with a missing marker, which
+takes the MAE imputer and shares ensemble dispatches across the images. The port's
 CLI runs in a subprocess (tests/conftest.py imports JAX) to show that the
 port imports neither JAX nor ribca_tpu.
 """
 
 import csv
 import os
+import shutil
 import subprocess
 import sys
 
@@ -193,16 +196,6 @@ def _port_config(ws, tmp_path, **kw):
     return AnnotatorConfig(**base)
 
 
-def test_imputation_raises_instead_of_skipping(workspace, tmp_path):
-    markers = tmp_path / "six_markers.txt"
-    markers.write_text("\n".join(PANELS["immune_base"][:-1]) + "\n")
-    ann = Annotator(_port_config(workspace, tmp_path, infer=True,
-                                 marker_file=str(markers)))
-    assert ann.channel_parser.indices["immune_base"][-1] == -1
-    with pytest.raises(NotImplementedError, match="imputation"):
-        ann.predict()
-
-
 def test_image_over_device_budget_raises(workspace, tmp_path):
     ann = Annotator(_port_config(workspace, tmp_path,
                                  device_image_budget_bytes=1000))
@@ -221,3 +214,131 @@ def test_tpu_only_settings_are_ignored_and_logged(workspace, tmp_path):
     Annotator(cfg)
     log = (tmp_path / "results" / "log.txt").read_text()
     assert "compile_cache_dir, prefetch_depth" in log
+
+
+# -- the batch path with a missing marker: MAE imputation + cohort packer ----
+
+
+@pytest.fixture(scope="module")
+def impute_workspace(workspace, tmp_path_factory):
+    """Two images in one batch CSV, immune_base markers without CD11c, and
+    full-size seeded weights: the slice's Flax-initialised classifier and a
+    Flax-initialised MAE imputer, as ``.npz`` that both packages read."""
+    from ribca_tpu.models.mae import build_imputer_model
+
+    wd = tmp_path_factory.mktemp("impute")
+    pairs = []
+    for seed, n_cells in ((1, 45), (2, 40)):
+        img, mask, _, _ = write_fixture(wd, n_channels=6, n_cells=n_cells,
+                                        h=100, w=110, seed=seed)
+        pairs.append((img, mask))
+    csv_path = str(wd / "images.csv")
+    write_manifest(pairs, csv_path)
+    markers = wd / "markers.txt"
+    markers.write_text("\n".join(
+        m for m in PANELS["immune_base"] if m != "CD11c") + "\n")
+    models = wd / "models"
+    models.mkdir()
+    shutil.copy(os.path.join(workspace["models"], "immune_base.npz"), models)
+    mae = build_imputer_model("immune_base")
+    ids = jax.numpy.arange(7, dtype=jax.numpy.int32)
+    tree = mae.init(jax.random.PRNGKey(9),
+                    jax.numpy.zeros((1, 1, 40, 280)), ids, ids)["params"]
+    save_params(jax.tree_util.tree_map(np.asarray, tree),
+                str(models / "immune_base_impute.npz"))
+    yield {"wd": wd, "csv": csv_path, "markers": str(markers),
+           "models": str(models)}
+    shutil.rmtree(models)  # the full-size imputer: ~0.4 GB
+
+
+def _impute_common(ws, name, device_voting):
+    return dict(marker_file=ws["markers"], csv_file=ws["csv"],
+                main_dir=str(ws["wd"] / name), batch_id="b", infer=True,
+                dtype="float32", device_voting=device_voting,
+                allow_random_weights=False, pack_cells=64, device="cpu")
+
+
+@pytest.fixture(scope="module", params=[True, False],
+                ids=["device_voting", "host_voting"])
+def impute_pair(request, impute_workspace):
+    dv = request.param
+    ws = impute_workspace
+    ref = JaxAnnotator(JaxConfig(**_impute_common(ws, f"jax_{dv}", dv)),
+                       models_dir=ws["models"])
+    port = Annotator(AnnotatorConfig(**_impute_common(ws, f"port_{dv}", dv)),
+                     models_dir=ws["models"])
+    for a in (ref, port):
+        a.preprocess()
+        a.predict()
+        a.export_annotations()
+    return ref, port
+
+
+def test_imputing_batch_matches_ribca_tpu(impute_pair):
+    ref, port = impute_pair
+    spec = port._runner.specs[0]
+    assert spec.imputer is not None and ref._runner.specs[0].imputer
+    assert [len(a) for a in port.annotations] == [
+        r.n_cells for r in ref.records]
+    assert len(set(ref.annotations[0] + ref.annotations[1])) >= 2
+    assert port.annotations == ref.annotations
+    assert list(port.cell_types) == list(ref.cell_types)
+    for i in range(2):
+        np.testing.assert_array_equal(port.records[i].cell_ids,
+                                      ref.records[i].cell_ids)
+        np.testing.assert_allclose(port.confidence[i], ref.confidence[i],
+                                   atol=1e-4, rtol=0)
+        np.testing.assert_allclose(port.intensity_full[i],
+                                   ref.intensity_full[i], atol=1e-5, rtol=0)
+
+
+def test_imputing_batch_csvs_match(impute_pair):
+    ref, port = impute_pair
+    for i in range(2):
+        name = f"b_annotation_{i}.csv"
+        rows = []
+        for a in (port, ref):
+            with open(os.path.join(a.result_dir, name), newline="") as f:
+                rows.append(list(csv.DictReader(f)))
+        got, want = rows
+        assert len(got) == len(want) == ref.records[i].n_cells
+        for g, w in zip(got, want):
+            for col in ("Cell Index", "Cell Type", "Row", "Column",
+                        "Tissue Region"):
+                assert g[col] == w[col], col
+            assert abs(float(g["Confidence"])
+                       - float(w["Confidence"])) <= 1e-3
+
+
+def _padding_line(annotator):
+    log = open(annotator.logger.log_file_path).read()
+    (line,) = [x for x in log.splitlines()
+               if x.startswith("Ensemble dispatch padding")]
+    return line
+
+
+def test_imputing_batch_shares_dispatches(impute_pair):
+    ref, port = impute_pair
+    assert _padding_line(port) == _padding_line(ref)
+    # 45 + 40 cells in 64-cell dispatches: two shared dispatches, one of
+    # them split across the images, instead of two per image
+    n = sum(r.n_cells for r in port.records)
+    assert port._runner.dispatches == 2 and n > 64
+    assert _padding_line(port) == (
+        f"Ensemble dispatch padding: {1 - n / 128:.1%} of rows")
+
+
+def test_random_imputer_marks_the_run(impute_workspace, tmp_path):
+    ws = impute_workspace
+    models = tmp_path / "models"
+    models.mkdir()
+    shutil.copy(os.path.join(ws["models"], "immune_base.npz"), models)
+    cfg = _impute_common(ws, "unused", True)
+    cfg.update(main_dir=str(tmp_path), allow_random_weights=True)
+    ann = Annotator(AnnotatorConfig(**cfg), models_dir=str(models))
+    ann.preprocess()
+    ann.predict()
+    log = (tmp_path / "results" / "log.txt").read_text()
+    assert "immune_base imputer weights not found" in log
+    assert "RANDOM_WEIGHTS" in log
+    assert ann._runner.specs[0].imputer is not None
